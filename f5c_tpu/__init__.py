@@ -1,12 +1,12 @@
-"""f5c-tpu: a TPU-native nanopore signal-analysis framework.
+"""f5c-tpu: nanopore signal analysis in JAX, on an NVIDIA GPU.
 
-A from-scratch JAX/XLA/Pallas implementation of the capabilities of f5c
+A from-scratch JAX/XLA implementation of the capabilities of f5c
 (Nanopolish's index / call-methylation / eventalign re-engineered for GPUs):
 raw-signal event detection, adaptive banded event alignment (ABEA), scaling
 recalibration, and profile-HMM methylation scoring / event re-alignment —
-designed TPU-first: batched, length-binned reads; fixed-shape padded device
-ops; `jax.sharding.Mesh` data-parallel scaling; Pallas kernels for the DP
-hot loops.
+batched, length-binned reads; `jax.sharding.Mesh` data-parallel scaling;
+a CUDA kernel for the ABEA band loop (ops/route.py picks each op's
+implementation per platform).
 
 Subpackages
 -----------
@@ -19,11 +19,19 @@ Subpackages
 
 __version__ = "0.1.0"
 
-# Persistent XLA compilation cache: the band-fill/backtrace programs are
-# expensive one-time compiles; cache them across processes.
+# Persistent XLA compilation cache: the alignment and scoring programs
+# are expensive one-time compiles.  JAX_COMPILATION_CACHE_DIR, when set,
+# decides alone; otherwise the cache lives at a fixed path inside the
+# checkout (listed in .gitignore).
 import os as _os
 
-_os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                       _os.path.expanduser("~/.cache/f5c_tpu_jax"))
-_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "2")
-_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+if "JAX_COMPILATION_CACHE_DIR" not in _os.environ:
+    import jax as _jax
+
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

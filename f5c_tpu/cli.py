@@ -27,7 +27,7 @@ def _add_common_meth_args(p):
     p.add_argument("-B", "--max-bases", type=_kmg, default=None,
                    help="max bases per batch (K/M/G suffixes ok) [5M]")
     p.add_argument("-x", "--profile", default=None,
-                   help="parameter preset (laptop/desktop/hpc/tpu/... or "
+                   help="parameter preset (laptop/desktop/hpc/hpc-gpu/... or "
                         "a file of 7 numbers), applied before other flags")
     p.add_argument("-w", "--window", default=None,
                    help="genomic region chr:start-end or a .bed file")
@@ -51,8 +51,8 @@ def _add_common_meth_args(p):
     p.add_argument("--events-engine", choices=["auto", "host", "device"],
                    default="auto",
                    help="event-detection engine: host C++ or the batched "
-                        "on-device detector; auto picks by the measured "
-                        "dispatch latency (BENCH.md)")
+                        "on-device detector; auto takes the host engine "
+                        "when the native library is built")
     p.add_argument("-o", "--output", default="-", help="output file")
     p.add_argument("--shard", default=None, metavar="I/N",
                    help="process only reads with read_idx %% N == I "
@@ -65,7 +65,7 @@ def _add_common_meth_args(p):
                         "exact single-process output (requires -o FILE)")
     p.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
                    help="coordination service address for manual --dist "
-                        "launches (auto-detected on TPU pods/SLURM)")
+                        "launches (auto-detected under SLURM)")
     p.add_argument("--dist-rank", type=int, default=None,
                    help="this process's rank for manual --dist launches")
     p.add_argument("--dist-nprocs", type=int, default=None,
@@ -104,8 +104,8 @@ def _add_common_meth_args(p):
 
 def _add_cuda_compat_args(p, full=True):
     """Accept the reference's CUDA tuning knobs (meth_main.c:76-84) so
-    f5c command lines are drop-in; they have no effect on the TPU/JAX
-    backend — a warning points at the TPU-native equivalents (the
+    f5c command lines are drop-in; they have no effect on the JAX
+    backend — a warning points at the equivalents here (the
     reference's non-CUDA build likewise accepts them, warning only for
     --disable-cuda, meth_main.c:313)."""
     g = p.add_argument_group("CUDA compatibility (accepted, no effect)")
@@ -129,7 +129,7 @@ def _warn_cuda_compat(args):
              if getattr(args, n, None) is not None]
     if given:
         print(f"WARNING: --{', --'.join(given)}: CUDA knobs have no "
-              "effect on the TPU backend (batching is tuned via -K/-B, "
+              "effect here (batching is tuned via -K/-B, "
               "F5C_TPU_WAVE and F5C_TPU_TRACE_BYTES; see USAGE.md)",
               file=sys.stderr)
 
@@ -208,8 +208,8 @@ def _dist_fail_note(dist_rank):
 
 
 def _maybe_profile(args):
-    """jax profiler trace context for --profile-dir (the TPU analogue of
-    the reference's per-stage/CUDA-kernel timers, meth_main.c:749-796)."""
+    """jax profiler trace context for --profile-dir (the analogue of the
+    reference's per-stage/CUDA-kernel timers, meth_main.c:749-796)."""
     import contextlib
 
     d = getattr(args, "profile_dir", None)
@@ -224,7 +224,7 @@ def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     ap = argparse.ArgumentParser(
         prog="f5c-tpu",
-        description="TPU-native nanopore signal analysis "
+        description="nanopore signal analysis on an NVIDIA GPU "
                     "(index / call-methylation / eventalign / resquiggle)")
     ap.add_argument("--version", action="version",
                     version=f"f5c-tpu {__version__}")
@@ -365,8 +365,9 @@ def main(argv=None):
         except BaseException:
             _dist_fail_note(dist_rank)
             raise
-        if dist_rank is not None:
+        if out is not sys.stdout:
             out.close()
+        if dist_rank is not None:
             from .parallel import distributed as dist_mod
 
             dist_mod.finalize(dist_outputs, dist_rank, dist_nprocs)
@@ -383,8 +384,9 @@ def main(argv=None):
         except BaseException:
             _dist_fail_note(dist_rank)
             raise
-        if dist_rank is not None:
+        if out is not sys.stdout:
             out.close()
+        if dist_rank is not None:
             from .parallel import distributed as dist_mod
 
             dist_mod.finalize(dist_outputs, dist_rank, dist_nprocs)

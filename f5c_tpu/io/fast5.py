@@ -131,15 +131,14 @@ def _read_signal_dataset(ds) -> np.ndarray:
     filters = ds._filters if hasattr(ds, "_filters") else {}
     if str(VBZ_FILTER_ID) not in {str(k) for k in filters}:
         raise OSError(f"cannot read dataset {ds.name}: unknown filter")
-    import zstandard
+    from .zstd import decompress
 
     n = ds.shape[0]
     chunk = ds.chunks[0] if ds.chunks else n
     out = np.empty(n, dtype=np.int16)
-    dctx = zstandard.ZstdDecompressor()
     for start in range(0, n, chunk):
         _, blob = ds.id.read_direct_chunk((start,))
-        svb = dctx.decompress(blob, max_output_size=chunk * 8 + 16)
+        svb = decompress(blob, max_output_size=chunk * 8 + 16)
         count = min(chunk, n - start)
         out[start : start + count] = _vbz_svb_decode(svb, count)
     return out

@@ -13,7 +13,7 @@ implemented by the reference's vendored slow5lib):
   ``u16 id_len + id + u64 offset + u64 size`` per read and an
   ``XDI5WOLS`` EOF marker (slow5lib/src/slow5_idx.c:362-490).
 
-Record compression: none/zlib (zstd gated on the zstandard module);
+Record compression: none/zlib/zstd (io/zstd.py);
 signal compression: none/svb-zd (StreamVByte zigzag-delta, decoded by
 the native library; NumPy fallback included).
 """
@@ -422,13 +422,9 @@ class Slow5File:
         if m == "zlib":
             return zlib.decompress(blob)
         if m == "zstd":
-            try:
-                import zstandard
-            except ImportError as e:
-                raise RuntimeError(
-                    "zstd-compressed BLOW5 needs the zstandard module"
-                ) from e
-            return zstandard.ZstdDecompressor().decompress(blob)
+            from .zstd import decompress
+
+            return decompress(blob)
         raise RuntimeError(f"unsupported record compression {m}")
 
     def read_ids(self):
@@ -561,9 +557,9 @@ def write_blow5(path: str, signals, rec_press: str = "zlib",
             if rec_press == "zlib":
                 blob = zlib.compress(rec)
             elif rec_press == "zstd":
-                import zstandard
+                from .zstd import compress
 
-                blob = zstandard.ZstdCompressor().compress(rec)
+                blob = compress(rec)
             elif rec_press == "none":
                 blob = rec
             else:

@@ -2,7 +2,7 @@
 
 A pore model maps every k-mer of an alphabet (nucleotide ACGT or
 cytosine-methylation-aware ACGMT) to the expected pico-ampere current level
-and its standard deviation.  On TPU the whole table lives device-resident
+and its standard deviation.  On the device the whole table lives
 as two float32 vectors indexed by k-mer rank; emission probabilities are a
 gather + fused elementwise Gaussian log-pdf.
 

@@ -1,7 +1,8 @@
 """Native host runtime bindings (ctypes).
 
-Compiles ``src/f5chost.cpp`` into ``libf5chost.so`` on first use (cached by
-source mtime) and exposes numpy-friendly wrappers.  Everything here has a
+Compiles ``src/f5chost.cpp`` into ``.build/libf5chost-<hash>.so`` on first
+use (keyed by source, flags, compiler and host CPU) and exposes
+numpy-friendly wrappers.  Everything here has a
 pure-Python/NumPy fallback in ``ops/*_ref.py`` / ``pipeline/methylation.py``
 — the native path exists because the host side of the pipeline (event
 detection, batch assembly, CpG group collection) is CPU-bound and the
@@ -21,7 +22,6 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src", "f5chost.cpp")
-_LIB_PATH = os.path.join(_DIR, "libf5chost.so")
 _PREP_SCRATCH = threading.local()
 
 _lock = threading.Lock()
@@ -42,19 +42,19 @@ _f32 = ctypes.c_float
 
 
 def _build() -> str:
-    """Compile the shared library if missing or stale."""
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
-        return _LIB_PATH
-    tmp = _LIB_PATH + f".tmp{os.getpid()}"
+    """Compile the shared library unless this source, command, compiler
+    and host CPU already have one (``buildcache``: ``-march=native``
+    code must never load on another CPU)."""
+    from ..buildcache import build, host_cpu, keyed_path
+
     # -ffp-contract=off: no FMA contraction — results must be bit-identical
     # to the NumPy oracles (strict IEEE f32/f64 op-for-op)
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-           "-march=native", "-ffp-contract=off", "-fno-math-errno",
-           _SRC, "-o", tmp]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH
+           "-march=native", "-ffp-contract=off", "-fno-math-errno", _SRC]
+    version = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True).stdout
+    return build(keyed_path("libf5chost", _SRC, cmd, version, host_cpu()),
+                 cmd)
 
 
 def _declare(lib):
@@ -221,7 +221,7 @@ def get_lib():
             lib = ctypes.CDLL(path)
             _declare(lib)
             _lib = lib
-        except (OSError, subprocess.CalledProcessError) as e:
+        except (OSError, RuntimeError) as e:
             print(f"[f5c-tpu] native build failed ({e}); "
                   "falling back to NumPy host path", file=sys.stderr)
             _load_failed = True
@@ -653,7 +653,7 @@ def decode_qc_postalign(packed_dirs: np.ndarray, n: int, start_event: int,
                         min_num_events_to_rescale: int):
     """Decode walk + alignment QC (avg emission / spanned / max gap,
     src/align.c:526-543) + postalign + recalibrate in one host pass —
-    the host half of the event-ring ABEA contract (ops/abea_ring.py).
+    the host half of the ABEA launch contract (ops/abea.plan_launch).
 
     -> (failed, calibrated, pairs[n,2], b2e_start, b2e_stop, epb,
         Scalings, sum_em, max_gap)."""

@@ -13,7 +13,8 @@ QC thresholds, and the band-placement parity rule, so outputs are
 comparable to the ``adaptive.exp`` / ``est_scalings.exp`` /
 ``recalib_scalings.exp`` fixtures.
 
-This is the correctness oracle for the batched Pallas kernel in ``abea.py``.
+This is the correctness oracle for the ABEA routes: the XLA version in
+``abea.py`` and the CUDA kernel in ``abea_cuda.cu``.
 """
 
 from __future__ import annotations

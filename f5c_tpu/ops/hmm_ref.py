@@ -11,7 +11,7 @@ sums logs through a 16000-entry lookup table (logsum.h, 0.001-nat
 precision); we use exact logaddexp in float64 — differences are far below
 the output tolerance.  The kmer-skip state forms a within-row linear chain
 (K_i depends on K_{i-1} of the same row); we vectorise it as a stable
-log-cumsum-exp, which is also how the batched TPU kernel parallelises it.
+log-cumsum-exp, which is also how the batched XLA scorer parallelises it.
 
 Row layout: rows = events (+1), blocks = kmers; M/B/K vectors per row.
 """

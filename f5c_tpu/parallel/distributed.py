@@ -5,8 +5,9 @@ cluster jobs by hand and merge with `freq-merge`
 (/root/reference/scripts/pipelines/methcall-ultra-pipeline.pbs.sh,
 src/freq_merge.c).  Here the framework owns that layer (SURVEY §2.7):
 
-- every process calls :func:`initialize` (jax.distributed — the TPU-pod
-  coordination service; also works with N CPU processes for tests);
+- every process calls :func:`initialize` (the jax.distributed
+  coordination service; also works with N CPU processes for tests) and
+  drives one local device;
 - reads are data-parallel sharded by ``read_idx % process_count`` —
   exactly the single-process ``--shard I/N`` machinery, so the sharded
   compute path is identical and already parity-tested
@@ -20,7 +21,7 @@ src/freq_merge.c).  Here the framework owns that layer (SURVEY §2.7):
 
 CLI: ``f5c-tpu call-methylation/eventalign --dist -o out.tsv`` plus
 ``--dist-coordinator HOST:PORT --dist-rank I --dist-nprocs N`` for
-manual launches (auto-detected on TPU pods/SLURM).
+manual launches (auto-detected under SLURM).
 
 The merge is exact, not tolerance-based: the per-read rows of a shard
 are produced by the same code on the same reads as a single-process
@@ -30,7 +31,7 @@ No device collectives are required (per-read outputs are strings; the
 only associative reduction in the toolchain — meth-freq site counts —
 already merges via `freq-merge`).  The barrier and the merge ride the
 jax.distributed coordination service, so the layer works on CPU
-processes, single-host multi-chip, and multi-host pods alike.
+processes, several cards of one host, and several hosts alike.
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ def initialize(coordinator: str | None = None,
                process_id: int | None = None) -> tuple[int, int]:
     """Join the jax.distributed coordination service.
 
-    With no arguments, jax auto-detects the cluster environment (TPU
-    pods, SLURM...).  For manual launches (tests, bare clusters) pass
+    With no arguments, jax auto-detects the cluster environment
+    (SLURM...).  For manual launches (tests, bare clusters) pass
     ``coordinator`` ("host:port"), ``num_processes`` and ``process_id``.
-    Returns (process_index, process_count).
+    A process drives one card: the one at its process index modulo the
+    host's device count (``local_device_ids``), so several processes of
+    one host never open the same card.  Returns (process_index,
+    process_count).
     """
     import jax
 
@@ -60,8 +64,22 @@ def initialize(coordinator: str | None = None,
         kwargs["num_processes"] = num_processes
     if process_id is not None:
         kwargs["process_id"] = process_id
+        cards = _local_cards()
+        if cards and "JAX_LOCAL_DEVICE_IDS" not in os.environ:
+            kwargs["local_device_ids"] = [process_id % cards]
     jax.distributed.initialize(**kwargs)
     return jax.process_index(), jax.process_count()
+
+
+def _local_cards() -> int:
+    """NVIDIA cards on this host, counted without starting JAX's backend
+    (0 where there are none, e.g. CPU-only test runs)."""
+    if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
+        return 0
+    try:
+        return len(os.listdir("/proc/driver/nvidia/gpus"))
+    except OSError:
+        return 0
 
 
 def barrier(name: str, timeout_ms: int = 3600 * 1000) -> None:

@@ -1,14 +1,16 @@
 """Device-mesh scaling: data-parallel read batches over `jax.sharding`.
 
 The pore model and reference tables are tiny (<= 2M floats) and replicated;
-reads are embarrassingly parallel, so the mesh design is a single 'data'
-axis over all chips (ICI-linked).  Host-side, each process feeds its own
-shard of the BAM stream (read_idx % n_hosts) and outputs merge
+reads are embarrassingly parallel, so the mesh is a single 'data' axis
+over the local devices.  The cards of a host are joined all to all, so
+the mesh follows the algorithm alone.  Host-side, each process feeds its
+own shard of the BAM stream (read_idx % n_hosts) and outputs merge
 deterministically by read index — the distributed analogue of the
 reference's per-host file sharding + freq-merge (SURVEY §2.7).
 
-Collectives: meth-freq count maps are associative sums -> psum over the
-mesh; per-read outputs are gathered per host and merged by index.
+Inputs are placed with a ``NamedSharding`` straight from the host: each
+device receives its own shard (or its replica) without a detour through
+device 0.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import functools
 
 import jax
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def data_mesh(devices=None) -> Mesh:
@@ -26,8 +28,18 @@ def data_mesh(devices=None) -> Mesh:
     return Mesh(np.asarray(devices), axis_names=("data",))
 
 
+def put_sharded(mesh: Mesh, a):
+    """Host array with a leading device axis -> one shard per device."""
+    return jax.device_put(a, NamedSharding(mesh, P("data")))
+
+
+def put_replicated(mesh: Mesh, a):
+    """Host (or device) array -> a full replica on every device."""
+    return jax.device_put(a, NamedSharding(mesh, P()))
+
+
 # per-device transfer accounting for sharded dispatches: evidence that
-# the host can feed N chips (per-device H2D shrinks with the mesh while
+# the host can feed N devices (per-device H2D shrinks with the mesh while
 # replicated tables stay constant).  Keys: <kind>.{n_dispatch,
 # sharded_bytes, replicated_bytes, per_device_bytes}.
 TRANSFER_LOG: dict[str, float] = {}
@@ -60,118 +72,53 @@ def transfer_table() -> str:
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    try:
-        from jax import shard_map as _sm
-    except (ImportError, AttributeError):
-        from jax.experimental.shard_map import shard_map as _sm
-    try:
-        # check_vma would demand varying-mesh-axis annotations on the
-        # Pallas kernels' out_shapes; the kernels are per-device programs
-        return _sm(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                   check_vma=False)
-    except TypeError:
-        return _sm(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
+    # check_vma would demand varying-mesh-axis annotations on the FFI
+    # call's results; every body here is a per-device program
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "E", "K", "n_bands",
-                                             "max_pairs", "cap",
-                                             "interpret"))
-def shard_align_ring(mesh: Mesh, ev_concat, ev_off, ev_len, rank_concat,
-                     rk_off, rk_len, level_mean, level_stdv,
-                     level_log_stdv, scale, shift, lp_stay, lp_step,
-                     lp_skip, lp_trim, byte_off,
-                     E: int, K: int, n_bands: int, max_pairs: int,
-                     cap: int, interpret: bool = False):
-    """The PRODUCTION ring-kernel ABEA (ops/abea_ring.py: on-device
-    expansion -> Pallas fill -> minimal walk -> ragged compaction) with
-    the read axis data-parallel over the mesh.
-
-    Every per-batch array carries a leading device axis (one concat-pool
-    shard per device, reads dealt round-robin by the runner for load
-    balance); the model tables are replicated.  Inside the mesh each
-    device runs the unmodified single-chip program — reads are
-    embarrassingly parallel, matching the reference's multi-GPU story
-    (one f5c process per GPU; SURVEY §2.7) but within one program.
-    """
-    from ..ops.abea_ring import abea_align_device_ring
-
-    sharded = P("data")
-    repl = P()
-
-    def run(ev_c, ev_o, ev_l, rk_c, rk_o, rk_l, lm, ls, ll, sc, sh,
-            lst, lstp, lsk, ltr, boff):
-        flat, start_e, n = abea_align_device_ring(
-            ev_c[0], ev_o[0], ev_l[0], rk_c[0], rk_o[0], rk_l[0],
-            lm, ls, ll, sc[0], sh[0], lst[0], lstp[0], lsk[0], ltr[0],
-            boff[0], E=E, K=K, n_bands=n_bands, max_pairs=max_pairs,
-            cap=cap, interpret=interpret)
+@functools.partial(jax.jit, static_argnames=("mesh", "impl", "E", "K",
+                                             "n_trace_bands", "cap"))
+def shard_abea(mesh: Mesh, impl, ev_pool, rk_pool, meta_i, meta_f,
+               byte_off, level_mean, level_stdv, level_log_stdv, *,
+               E: int, K: int, n_trace_bands: int, cap: int):
+    """The ABEA launch ``impl`` (ops/route.abea_impl) with the read axis
+    data-parallel over the mesh.  Pools and launch metadata carry a
+    leading device axis (one shard per device); the model tables are
+    replicated.  Each device runs the unmodified one-device launch."""
+    def run(ev, rk, mi, mf, bo, lm, ls, ll):
+        flat, start_e, n = impl(ev[0], rk[0], mi[0], mf[0], bo[0], lm, ls,
+                                ll, E=E, K=K, n_trace_bands=n_trace_bands,
+                                cap=cap)
         return flat[None], start_e[None], n[None]
 
-    fn = _shard_map(
-        run, mesh,
-        in_specs=(sharded,) * 6 + (repl,) * 3 + (sharded,) * 7,
-        out_specs=(sharded, sharded, sharded))
-    return fn(ev_concat, ev_off, ev_len, rank_concat, rk_off, rk_len,
-              level_mean, level_stdv, level_log_stdv, scale, shift,
-              lp_stay, lp_step, lp_skip, lp_trim, byte_off)
-
-
-@functools.partial(jax.jit, static_argnames=("mesh", "pad_events",
-                                             "pad_k", "max_path"))
-def shard_viterbi_rounds(mesh: Mesh, spec_i32, spec_f32, rank_pool,
-                         ev_pool, level_mean, level_stdv, level_log_stdv,
-                         pad_events: int, pad_k: int, max_path: int):
-    """The PRODUCTION eventalign lockstep Viterbi round
-    (ops/hmm.hmm_viterbi_rounds) with the chunk axis data-parallel over
-    the mesh.  Specs carry a leading device axis; the per-batch
-    rank/event pools and model tables are replicated (they are uploaded
-    once per batch — SURVEY §2.7; ref src/eventalign.c:1267-1531)."""
-    from ..ops.hmm import hmm_viterbi_rounds
-
-    sharded = P("data")
-    repl = P()
-
-    def run(si, sf, rp, ep, lm, ls, ll):
-        movs, n = hmm_viterbi_rounds(
-            si[0], sf[0], rp, ep, lm, ls, ll, pad_events=pad_events,
-            pad_k=pad_k, max_path=max_path)
-        return movs[None], n[None]
-
-    fn = _shard_map(
-        run, mesh,
-        in_specs=(sharded, sharded) + (repl,) * 5,
-        out_specs=(sharded, sharded))
-    return fn(spec_i32, spec_f32, rank_pool, ev_pool, level_mean,
+    sharded, repl = P("data"), P()
+    fn = _shard_map(run, mesh, in_specs=(sharded,) * 5 + (repl,) * 3,
+                    out_specs=(sharded, sharded, sharded))
+    return fn(ev_pool, rk_pool, meta_i, meta_f, byte_off, level_mean,
               level_stdv, level_log_stdv)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "SEG", "interpret"))
-def shard_hmm_forward(mesh: Mesh, ranks, n_km, ev_pool, ev_start, stride,
-                      n_events, scale, shift, var, lp_stay, lp_step,
+@functools.partial(jax.jit, static_argnames=("mesh", "SEG", "k",
+                                             "use_i16", "pad_events"))
+def shard_hmm_forward(mesh: Mesh, meta, packed_ref, read_tab, ev_pool,
                       level_mean, level_stdv, level_log_stdv,
-                      SEG: int, interpret: bool = False):
-    """The PRODUCTION Pallas profile-HMM scorer (ops/hmm_pallas.py) with
-    the work-item axis data-parallel over the mesh; model tables
-    replicated.  Inputs carry a leading device axis like
-    shard_align_ring."""
-    from ..ops.hmm_pallas import hmm_forward_pallas
+                      SEG: int, k: int, use_i16: bool, pad_events: int):
+    """The profile-HMM scorer with on-device input assembly
+    (ops/hmm_meta.hmm_forward_meta) with the window axis data-parallel
+    over the mesh: ``meta`` carries a leading device axis; the packed
+    reference, read table, event pool and model tables are replicated.
+    Returns scores [D, n_rows_d, 128 // SEG]."""
+    from ..ops.hmm_meta import hmm_forward_meta
 
-    sharded = P("data")
-    repl = P()
-
-    def run(rk, nk, pool, st, sd, nev, sc, sh, vr, lst, lstp, lm, ls, ll):
-        s = hmm_forward_pallas(
-            rk[0], nk[0], pool, st[0], sd[0], nev[0], sc[0], sh[0],
-            vr[0], lst[0], lstp[0], lm, ls, ll, SEG=SEG,
-            interpret=interpret)
+    def run(mt, pr, rt, pool, lm, ls, ll):
+        s = hmm_forward_meta(mt[0], pr, rt, pool, lm, ls, ll, SEG=SEG, k=k,
+                             use_i16=use_i16, pad_events=pad_events)
         return s[None]
 
-    fn = _shard_map(
-        run, mesh,
-        in_specs=(sharded, sharded, repl) + (sharded,) * 8 + (repl,) * 3,
-        out_specs=sharded)
-    return fn(ranks, n_km, ev_pool, ev_start, stride, n_events, scale,
-              shift, var, lp_stay, lp_step, level_mean, level_stdv,
+    sharded, repl = P("data"), P()
+    fn = _shard_map(run, mesh, in_specs=(sharded,) + (repl,) * 6,
+                    out_specs=sharded)
+    return fn(meta, packed_ref, read_tab, ev_pool, level_mean, level_stdv,
               level_log_stdv)
-
-

@@ -1,166 +1,116 @@
-"""Mesh parity harness: run the PRODUCTION align path (ring Pallas
-kernel, interpreter mode off-chip) over real ecoli reads twice — once
-single-device, once data-parallel over every visible device — and
-assert bit-identical pipeline results.  Used by tests/test_mesh.py (in
-a CPU subprocess) and by __graft_entry__.dryrun_multichip (the driver's
-virtual-device validation)."""
+"""Mesh parity harness: call-methylation and eventalign over a dataset
+twice in one process — once on one device, once data-parallel over every
+local device — and require byte-identical outputs.
+
+The one-device run takes the wave schedule (``align_batch_waved``); the
+mesh run deals reads over the devices (``_align_sharded``,
+``shard_hmm_forward``; eventalign's realign runs on the host).  Used by
+tests/test_mesh.py (the vendored golden set on 4 virtual CPU devices),
+``chip_smoke.py --chips 4`` (the generated set on 4 cards) and
+``__graft_entry__.dryrun_multichip``.
+
+Usage: python -m f5c_tpu.parallel.mesh_check [dataset_dir]
+(default: tests/data/golden; the directory holds genome.fa, reads.fasta,
+reads.bam and signals.blow5).
+"""
 
 from __future__ import annotations
 
+import io
 import os
+import shutil
 import tempfile
+import time
+from types import SimpleNamespace
 
-import numpy as np
-
-ECOLI_DIR = "/root/reference/test/ecoli_2kb_region"
-
-
-def _mini_pipeline(tmpdir: str, n_reads: int):
-    from f5c_tpu.io.bam import write_bam
-    from f5c_tpu.io.fasta import FastaIndex
-    from f5c_tpu.io.readdb import ReadDB
-    from f5c_tpu.pipeline.runner import Options, Pipeline
-
-    fa = FastaIndex(os.path.join(ECOLI_DIR, "reads.fasta"))
-    names = fa.names()[:n_reads]
-    reads = os.path.join(tmpdir, "reads.fasta")
-    genome = os.path.join(tmpdir, "genome.fa")
-    with open(genome, "w") as g, open(reads, "w") as r:
-        for n in names:
-            seq = fa.fetch(n)
-            g.write(f">{n}\n{seq}\n")
-            r.write(f">{n}\n{seq}\n")
-
-    class Rec:
-        pass
-
-    recs = []
-    for i, n in enumerate(names):
-        rec = Rec()
-        rec.qname = n
-        rec.flag = 0
-        rec.tid = i
-        rec.pos = 0
-        rec.mapq = 60
-        rec.cigar = [(0, fa.entries[n].length)]
-        rec.seq = fa.fetch(n)
-        recs.append(rec)
-    bam = os.path.join(tmpdir, "self.bam")
-    write_bam(bam, [(n, fa.entries[n].length) for n in names], recs)
-    ReadDB(reads).build(
-        fast5_dirs=[os.path.join(ECOLI_DIR, "fast5_files")])
-    return Pipeline(bam, genome, reads, Options(min_mapq=0, num_proc=1))
+GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "tests", "data", "golden")
+FILES = ("genome.fa", "reads.fasta", "reads.bam", "signals.blow5")
 
 
-def _run_align(tmp_root: str, tag: str, mesh: bool, n_reads: int):
-    import time
+def run_outputs(src_dir: str, work: str, mesh: bool,
+                opt_kw: dict | None = None) -> dict:
+    """call-methylation TSV + eventalign TSV/summary for the dataset in
+    ``src_dir`` (indexed in ``work``), on the mesh or on one device."""
+    from ..io.readdb import ReadDB
+    from ..pipeline.eventalign import run_eventalign
+    from ..pipeline.runner import Options, Pipeline
 
-    import io
-
-    os.environ["F5C_TPU_INTERPRET"] = "1"
-    os.environ["F5C_TPU_MESH"] = "1" if mesh else "0"
-    # device lockstep rounds so the sharded Viterbi path is exercised
-    os.environ["F5C_TPU_EA_ENGINE"] = "device"
+    os.makedirs(work, exist_ok=True)
+    for f in FILES:
+        shutil.copy(os.path.join(src_dir, f), work)
+    reads = os.path.join(work, "reads.fasta")
+    slow5 = os.path.join(work, "signals.blow5")
+    ReadDB(reads).build(slow5_path=slow5)
+    opt_kw = dict(min_mapq=0, slow5_path=slow5, num_proc=1,
+                  **(opt_kw or {}))
+    env = {"F5C_TPU_MESH": "1" if mesh else "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
-        d = os.path.join(tmp_root, tag)
-        os.makedirs(d, exist_ok=True)
-        pipe = _mini_pipeline(d, n_reads)
-        (batch,) = list(pipe.batches())
-        t0 = time.time()
-        pipe.align_batch(batch)
-        sites = pipe.meth_batch(batch)      # sharded HMM under the mesh
-        _run_align.last_secs = time.time() - t0
-        out = {}
-        for r in batch:
-            scored = sites.get(id(r), {})
-            if hasattr(scored, "to_sites"):   # MethCalls fast path
-                scored = scored.to_sites()
-            out[r.qname] = (
-                int(r.status),
-                None if r.pairs is None else r.pairs.copy(),
-                None if r.scaling is None else
-                (r.scaling.shift, r.scaling.scale, r.scaling.var),
-                None if r.b2e_start is None else r.b2e_start.copy(),
-                sorted((pos, s.ll_methylated, s.ll_unmethylated)
-                       for pos, s in scored.items()),
-            )
-        # eventalign through the sharded lockstep Viterbi rounds
-        # (parallel/mesh.py:shard_viterbi_rounds under the mesh),
-        # reusing the batch already aligned above (the align stage is
-        # the slow part off-chip in interpreter mode)
-        from f5c_tpu.pipeline.eventalign import (EventalignEngine,
-                                                 emit_tsv)
+        def pipeline():
+            return Pipeline(os.path.join(work, "reads.bam"),
+                            os.path.join(work, "genome.fa"), reads,
+                            Options(**opt_kw))
 
-        engine = EventalignEngine(pipe.model)
-        ok = [r for r in batch
-              if not r.status and r.b2e_start is not None]
-        refs = [pipe._fetch_ref_segment(r) for r in ok]
-        recs_map = engine.realign_batch(ok, refs)
+        t0 = time.perf_counter()
+        meth = io.StringIO()
+        pipeline().call_methylation(out=meth)
+        t_meth = time.perf_counter() - t0
         ea = io.StringIO()
-        for i, r in enumerate(ok):
-            recs = recs_map[id(r)]
-            ea.write(emit_tsv(recs, r, pipe.model,
-                              pipe.bam.references[r.tid],
-                              recs.ref_disamb, recs.ref_offset, i))
-        out["__eventalign__"] = ea.getvalue()
-        return out
+        summary = os.path.join(work, "summary.tsv")
+        t0 = time.perf_counter()
+        run_eventalign(pipeline(), SimpleNamespace(summary=summary), out=ea)
+        t_ea = time.perf_counter() - t0
+        with open(summary) as f:
+            summ = f.read()
     finally:
-        os.environ.pop("F5C_TPU_INTERPRET", None)
-        os.environ.pop("F5C_TPU_MESH", None)
-        os.environ.pop("F5C_TPU_EA_ENGINE", None)
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return dict(meth=meth.getvalue(), eventalign=ea.getvalue(),
+                summary=summ, secs=dict(meth=t_meth, eventalign=t_ea))
 
 
-def run_mesh_parity(n_reads: int = 10) -> int:
-    """Returns the number of reads compared; raises on any mismatch.
-
-    Also prints align+meth wall time for the single-device and sharded
-    runs.  NOTE on the throughput numbers: off-chip the 'devices' are
-    virtual CPU devices in Pallas interpreter mode sharing ONE host
-    core, so sharded reads/s measures mesh-dispatch OVERHEAD (it cannot
-    show speedup); real scaling needs real chips.
-    """
+def run_mesh_parity(src_dir: str = GOLDEN, opt_kw: dict | None = None,
+                    log=print) -> dict:
+    """Run both ways; raises AssertionError on any byte difference.
+    Returns the per-output row counts and walls."""
     import jax
 
-    from f5c_tpu.parallel.mesh import TRANSFER_LOG
+    from .mesh import TRANSFER_LOG, transfer_table
 
-    n_dev = len(jax.devices())
+    n_dev = len(jax.local_devices())
     assert n_dev >= 2, f"need a multi-device mesh, have {n_dev}"
     TRANSFER_LOG.clear()
     tmp = tempfile.mkdtemp(prefix="f5c_mesh_")
-    single = _run_align(tmp, "single", mesh=False, n_reads=n_reads)
-    t_single = _run_align.last_secs
-    sharded = _run_align(tmp, "sharded", mesh=True, n_reads=n_reads)
-    t_sharded = _run_align.last_secs
-    print(f"[mesh_check] align+meth wall: single-device {t_single:.1f}s "
-          f"({n_reads / t_single:.2f} reads/s), {n_dev}-device mesh "
-          f"{t_sharded:.1f}s ({n_reads / t_sharded:.2f} reads/s) "
-          f"[virtual devices share one host core: overhead probe, "
-          f"not a speedup measure]")
-    ea_single = single.pop("__eventalign__")
-    ea_sharded = sharded.pop("__eventalign__")
-    assert set(single) == set(sharded)
-    for q in single:
-        s0, p0, sc0, b0, m0 = single[q]
-        s1, p1, sc1, b1, m1 = sharded[q]
-        assert s0 == s1, f"{q}: status {s0} != {s1}"
-        if p0 is None:
-            assert p1 is None, q
-            continue
-        np.testing.assert_array_equal(p0, p1, err_msg=q)
-        assert sc0 == sc1, q
-        np.testing.assert_array_equal(b0, b1, err_msg=q)
-        assert m0 == m1, f"{q}: meth scores differ under the mesh"
-    assert ea_single == ea_sharded, (
-        "eventalign TSV differs under the mesh")
-    n_ea = ea_single.count("\n") - 1
-    print(f"[mesh_check] eventalign sharded == single byte-for-byte "
-          f"({n_ea} TSV rows)")
-    from f5c_tpu.parallel.mesh import transfer_table
-    print("[mesh_check] per-device H2D accounting (sharded run):")
-    print(transfer_table())
-    return len(single)
+    try:
+        # one work directory for both: the summary names signal paths
+        single = run_outputs(src_dir, tmp, False, opt_kw)
+        sharded = run_outputs(src_dir, tmp, True, opt_kw)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = {}
+    for key in ("meth", "eventalign", "summary"):
+        a, b = single[key], sharded[key]
+        assert a == b, f"{key} differs between 1 and {n_dev} devices"
+        rows[key] = a.count("\n") - 1
+        assert rows[key] > 0, f"{key}: no output rows"
+    log(f"[mesh_check] {n_dev} devices == 1 device byte for byte: "
+        + ", ".join(f"{k} {v} rows" for k, v in rows.items()))
+    for tag, res in (("1 device", single), (f"{n_dev} devices", sharded)):
+        log(f"[mesh_check] {tag}: call-methylation "
+            f"{res['secs']['meth']:.3f} s, eventalign "
+            f"{res['secs']['eventalign']:.3f} s")
+    log("[mesh_check] per-device H2D accounting (mesh run):")
+    log(transfer_table())
+    return dict(rows=rows, single=single["secs"], sharded=sharded["secs"])
 
 
 if __name__ == "__main__":
-    n = run_mesh_parity(int(os.environ.get("F5C_MESH_READS", "10")))
-    print(f"[mesh_check] OK: {n} reads, sharded == single bit-for-bit")
+    import sys
+
+    run_mesh_parity(sys.argv[1] if len(sys.argv) > 1 else GOLDEN)
+    print("[mesh_check] OK")

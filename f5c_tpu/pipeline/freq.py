@@ -3,7 +3,7 @@ methylation frequencies (reference src/freq.c, src/freq_merge.c).
 
 Two engines produce byte-identical tables:
 - native (default for file-backed input): the C++ accumulator in
-  f5chost.cpp streams the TSV in 8 MB chunks — the TPU-repo analogue of
+  f5chost.cpp streams the TSV in 8 MB chunks — this repo's analogue of
   the reference's C implementation (production meth TSVs are GBs).
   Lines its strict parser is unsure about (anything CPython's
   int()/float() might read differently) are handed back and re-processed

@@ -8,7 +8,7 @@ unmethylated and with every CpG methylated (CG -> MG) — and report the
 log-likelihood ratio.
 
 Reference parity: src/meth.c:473-612 plus its helpers.  The HMM windows
-this module produces are exactly the batched work items the TPU HMM kernel
+this module produces are exactly the batched work items the device HMM scorer
 consumes; this host orchestration is shared by the NumPy and device paths.
 """
 

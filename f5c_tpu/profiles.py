@@ -3,9 +3,9 @@
 
 Each preset sets the batch geometry (K reads / B bases), host worker
 count, I/O process count, and the ultra-long read threshold.  The
-reference's CUDA memory knobs (max-lf / avg-epk / max-epk) have no TPU
-equivalent — the TPU path length-buckets and streams batches instead of
-partitioning reads between CPU and GPU — so they are accepted and
+reference's CUDA memory knobs (max-lf / avg-epk / max-epk) have no
+equivalent here — the pipeline launches whole batches on the device
+instead of partitioning reads between CPU and GPU — so they are accepted and
 recorded but unused.  A profile name that is not in the table is read as
 a file of 7 numbers (max-lf avg-epk max-epk K B t ultra-thresh), like
 the reference.
@@ -44,10 +44,6 @@ PROFILES = {
     "hpc-cpu": Profile(5.0, 2.0, 5.0, 4096, 50_000_000, 32, 100_000, 32),
     "hpc-gpu": Profile(5.0, 2.0, 5.0, 1024, 10_000_000, 32, 100_000, 32),
     "nci-gadi": Profile(5.0, 2.0, 5.0, 2048, 20_000_000, 12, 100_000, 64),
-    # TPU-native presets: one chip streams large batches; the host side
-    # is the native C++ runtime, so worker count tracks host cores
-    "tpu": Profile(5.0, 2.0, 5.0, 512, 5_000_000, 1, 100_000, 1),
-    "tpu-pod-host": Profile(5.0, 2.0, 5.0, 2048, 20_000_000, 8, 100_000, 8),
 }
 # aliases (profiles.c:62-77)
 PROFILES["laptop"] = PROFILES["laptop-mid"]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Join two per-site methylation frequency tables and report agreement.
 
-TPU-repo equivalent of the reference's nanopolish-quickstart helpers
+This repo's equivalent of the reference's nanopolish-quickstart helpers
 (scripts/compare_methylation.py + plot_methylation.R): reads two
 `meth-freq` TSVs (or bedMethyl files, e.g. bisulfite truth), joins them
 on (chromosome, start, end), prints a comparison TSV

@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""On-chip kernel-time table from a JAX profiler trace of the bench.
+"""Device-time tables from a JAX profiler trace of the GPU.
 
-Runs the warmed call-methylation pipeline once under
-jax.profiler.trace(), then parses the perfetto trace
-(plugins/profile/*/\*.trace.json.gz) and aggregates device-track event
-durations by kernel name.  Prints a table of device time per kernel so
-the ABEA fill's measured on-chip time can be compared against its
-computed roofline (BENCH.md "ABEA fill roofline").
+``device_tables(trace_dir)`` reads the newest ``*.xplane.pb`` under
+``trace_dir`` with ``jax.profiler.ProfileData`` and, for the first GPU
+(plane ``/device:GPU:0``), sums the durations of the events on its
+``Stream #...`` lines (CUDA kernels and copies)
 
-Usage: python scripts/kernel_time_table.py [outdir]
+- per jitted program (each event's ``hlo_module`` stat:
+  ``jit_abea_align_cuda``, ``jit_hmm_forward_meta``, ...),
+- per kernel (the event name),
+
+and the device busy share: the union of the stream events' intervals
+over the span from the first to the last of them.
+
+Run as a script, it traces one warm call-methylation run of bench.py's
+generated dataset and prints the tables:
+
+    python scripts/kernel_time_table.py [--reads=N] [trace_dir]
 """
 
 import glob
-import gzip
-import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 from collections import defaultdict
@@ -23,98 +30,92 @@ from collections import defaultdict
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-import bench  # noqa: E402
+
+def _union_ns(intervals):
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
 
 
-def parse_trace(trace_dir):
-    paths = glob.glob(os.path.join(
-        trace_dir, "plugins", "profile", "*", "*.trace.json.gz"))
+def device_tables(trace_dir, device="/device:GPU:0"):
+    """Returns (modules {name: (seconds, count)}, kernels {name:
+    (seconds, count)}, busy seconds, window seconds)."""
+    import jax
+
+    paths = glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
+                      recursive=True)
     if not paths:
-        paths = glob.glob(os.path.join(trace_dir, "**", "*.trace.json.gz"),
-                          recursive=True)
-    if not paths:
-        raise SystemExit(f"no trace.json.gz under {trace_dir}")
-    path = max(paths, key=os.path.getmtime)
-    with gzip.open(path, "rt") as f:
-        data = json.load(f)
-    events = data.get("traceEvents", [])
-    # identify device tracks: process names containing "TPU" / "/device:"
-    pid_name = {}
-    tid_name = {}
-    for e in events:
-        if e.get("ph") == "M":
-            if e.get("name") == "process_name":
-                pid_name[e["pid"]] = e["args"].get("name", "")
-            elif e.get("name") == "thread_name":
-                tid_name[(e["pid"], e.get("tid"))] = e["args"].get(
-                    "name", "")
-    # device tracks only: accept accelerator process names ("TPU" or
-    # "/device:TPU"), NOT host CPU tracks whose names merely contain
-    # "device".  On a multi-chip run durations would sum across chips,
-    # so keep one pid (the busiest) and say so.
-    dev_pids = {p for p, n in pid_name.items()
-                if "TPU" in n or "/device:" in n}
-    per_kernel = defaultdict(float)
-    per_kernel_n = defaultdict(int)
-    total = 0.0
-    matched = 0
-    per_pid = defaultdict(float)
-    for e in events:
-        if e.get("ph") != "X" or e.get("pid") not in dev_pids:
+        raise SystemExit(f"no .xplane.pb under {trace_dir}")
+    pd = jax.profiler.ProfileData.from_file(max(paths,
+                                                key=os.path.getmtime))
+    planes = {p.name: p for p in pd.planes}
+    if device not in planes:
+        raise SystemExit(f"no plane {device} in the trace (planes: "
+                         f"{sorted(planes)}): not a GPU trace")
+    modules = defaultdict(lambda: [0.0, 0])
+    kernels = defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for line in planes[device].lines:
+        if not line.name.startswith("Stream"):
             continue
-        tname = tid_name.get((e["pid"], e.get("tid")), "")
-        # XLA op tracks nest under "XLA Ops"/"Steps"; keep leaf op rows
-        if "Ops" not in tname:
-            continue
-        dur = float(e.get("dur", 0.0)) / 1e6   # us -> s
-        name = e.get("name", "?")
-        per_kernel[name] += dur
-        per_kernel_n[name] += 1
-        total += dur
-        per_pid[e["pid"]] += dur
-        matched += 1
-    if not matched:
-        raise SystemExit(
-            f"no device op events matched in {path} "
-            f"(device pids seen: {sorted(dev_pids)}; a trace-format "
-            "change must fail loudly, not print a zero table)")
-    if len(per_pid) > 1:
-        print(f"[ktt] NOTE: {len(per_pid)} device pids in trace; "
-              "durations are summed across chips", file=sys.stderr)
-    return path, per_kernel, per_kernel_n, total
+        for e in line.events:
+            sec = e.duration_ns / 1e9
+            module = dict(e.stats).get("hlo_module", "(no module)")
+            for table, key in ((modules, module), (kernels, e.name)):
+                table[key][0] += sec
+                table[key][1] += 1
+            intervals.append((e.start_ns, e.start_ns + e.duration_ns))
+    if not intervals:
+        raise SystemExit(f"no stream events on {device}: the trace format "
+                         "changed; refusing to print an empty table")
+    window = (max(e for _, e in intervals)
+              - min(s for s, _ in intervals)) / 1e9
+    busy = _union_ns(intervals) / 1e9
+    return ({k: tuple(v) for k, v in modules.items()},
+            {k: tuple(v) for k, v in kernels.items()}, busy, window)
+
+
+def print_tables(modules, kernels, busy, window, top=20, out=sys.stdout):
+    for title, table in (("program", modules), ("kernel", kernels)):
+        print(f"{'device s':>10} {'calls':>6}  {title}", file=out)
+        for name, (sec, n) in sorted(table.items(),
+                                     key=lambda kv: -kv[1][0])[:top]:
+            print(f"{sec:10.4f} {n:6d}  {name[:90]}", file=out)
+    print(f"device busy {busy:.4f} s of a {window:.4f} s window: idle "
+          f"share {1 - busy / max(window, 1e-12):.3f}", file=out)
 
 
 def main():
-    outdir = sys.argv[1] if len(sys.argv) > 1 else None
-    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
-    tmp = tempfile.mkdtemp(prefix="f5c_tpu_ktt_", dir=shm)
-    trace_dir = outdir or os.path.join(tmp, "trace")
-    try:
-        bam, genome, reads, n_reads, slow5 = bench.setup_dataset(
-            tmp, blow5=True)
-        out = os.path.join(tmp, "o.tsv")
-        # two warmups (compile + residual first-call costs)
-        bench.run_once(bam, genome, reads, out, slow5)
-        bench.run_once(bam, genome, reads, out, slow5)
-        import jax
+    import jax
 
+    import bench
+
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    n_reads = int(bench._arg("reads", 1024))
+    tmp = tempfile.mkdtemp(prefix="f5c_ktt_")
+    trace_dir = args[0] if args else os.path.join(tmp, "trace")
+    try:
+        bam, genome, reads, _, slow5 = bench.setup_dataset(
+            tmp, n_reads=n_reads)
+        out = os.path.join(tmp, "o.tsv")
+        for _ in range(2):          # compile + first-call costs
+            bench.run_once(bam, genome, reads, out, slow5)
         with jax.profiler.trace(trace_dir):
             wall, pipe = bench.run_once(bam, genome, reads, out, slow5)
-        print(f"[ktt] measured wall {wall:.3f}s "
-              f"({pipe.counters['processed']} reads)", file=sys.stderr)
-        path, per_kernel, per_n, total = parse_trace(trace_dir)
-        print(f"[ktt] trace {path}", file=sys.stderr)
-        rows = sorted(per_kernel.items(), key=lambda kv: -kv[1])
-        print(f"{'device s':>10} {'calls':>6}  kernel")
-        shown = 0.0
-        for name, dur in rows[:25]:
-            print(f"{dur:10.4f} {per_n[name]:6d}  {name[:90]}")
-            shown += dur
-        print(f"{total:10.4f} {'':6}  TOTAL device op time "
-              f"({100 * total / wall:.1f}% of {wall:.3f}s wall)")
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip() or jax.devices()[0].device_kind
+        print(f"[ktt] traced wall {wall:.3f} s "
+              f"({pipe.counters['processed']} reads) on {card}")
+        print_tables(*device_tables(trace_dir))
     finally:
-        # the generated dataset always lives under tmp; only the trace
-        # dir outlives the run (it is outside tmp when outdir is given)
         shutil.rmtree(tmp, ignore_errors=True)
 
 

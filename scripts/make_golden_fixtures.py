@@ -14,7 +14,7 @@ computed OFFLINE once and vendored:
 - ``meth.exp``     — call-methylation TSV through the pure-NumPy oracle
   stack end to end: ops/events_ref -> ops/abea_ref (align + postalign +
   recalibrate) -> pipeline/methylation.call_methylation_for_read
-  (ops/hmm_ref forward scorer).  No device code, no Pallas.
+  (ops/hmm_ref forward scorer).  No device code.
 - ``eventalign.exp.gz`` + ``eventalign.summary.exp`` — eventalign TSV +
   summary with the same oracle-derived read state (events, scalings,
   b2e maps all from ops/*_ref.py); the per-chunk Viterbi DP runs via
@@ -27,6 +27,10 @@ are vendored under tests/data/golden/ so the PRODUCTION device pipeline
 is gated against genome-true LLR semantics in CI and the default suite
 (tests/test_golden_e2e.py) with the reference's float tolerance
 (|x - t| <= 0.1|t| + 0.02, <= 5 %% deviant rows — scripts/test.awk:7-13).
+
+The vendored files were made with an earlier per-kmer version of the
+signal simulator; f5c_tpu/sim.py draws its random numbers in another
+order, so a rerun writes a different (equally valid) dataset.
 
 Usage: python scripts/make_golden_fixtures.py [outdir]
 (default outdir: tests/data/golden)
@@ -43,40 +47,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 SEED = 20260820
-DIGITISATION = 8192.0
-RANGE = 1467.61
-OFFSET = 10.0
-SAMPLE_RATE = 4000.0
-
-
-def _revcomp(s: str) -> str:
-    return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
-
-
-def _simulate_signal(rng, seq: str, model) -> np.ndarray:
-    """Raw int16 ADC samples for a read: per-kmer dwell at the pore
-    model level + Gaussian noise.  No open-pore pads: the reference's
-    getevents computes its trim but DISCARDS it (events.c:566-575 — the
-    oracle reproduces that), so pad samples would become events and
-    skew the MoM scaling."""
-    ranks = model.kmer_ranks(seq)
-    parts = []
-    for r in ranks:
-        n = int(rng.integers(6, 13))
-        parts.append(rng.normal(model.level_mean[r],
-                                model.level_stdv[r] * 0.6, n))
-    pa = np.concatenate(parts)
-    raw = np.rint(pa * DIGITISATION / RANGE - OFFSET)
-    return np.clip(raw, -32000, 32000).astype(np.int16)
-
-
-def _mutate(rng, s: str, rate: float) -> str:
-    out = list(s)
-    idx = rng.random(len(s)) < rate
-    bases = "ACGT"
-    for i in np.nonzero(idx)[0]:
-        out[i] = bases[(bases.index(out[i]) + int(rng.integers(1, 4))) % 4]
-    return "".join(out)
 
 
 def build_dataset(outdir: str):
@@ -86,6 +56,8 @@ def build_dataset(outdir: str):
     from f5c_tpu.io.fast5 import Signal
     from f5c_tpu.io.slow5 import write_blow5
     from f5c_tpu.models import builtin_model
+    from f5c_tpu.sim import (DIGITISATION, OFFSET, RANGE, SAMPLE_RATE,
+                             mutate, revcomp, simulate_signal)
 
     rng = np.random.default_rng(SEED)
     model = builtin_model("dna_r9_nucleotide")
@@ -101,13 +73,13 @@ def build_dataset(outdir: str):
     fwd("gr0", 0, 1200)
     fwd("gr5", 400, 1000)
     seg = genome[1800:3100]
-    read4 = _mutate(rng, seg, 0.01)
+    read4 = mutate(rng, seg, 0.01)
     reads.append(("gr4", read4, 0, 1800, [(0, len(seg))], read4))
 
     # r1: perfect reverse: basecalled read is the revcomp of the
     # reference window; BAM stores the ref-oriented sequence (flag 16)
     seg = genome[700:1900]
-    reads.append(("gr1", _revcomp(seg), 16, 700, [(0, len(seg))], seg))
+    reads.append(("gr1", revcomp(seg), 16, 700, [(0, len(seg))], seg))
 
     # r2: forward with soft clips + insertion + deletion
     clip = "".join(rng.choice(list("ACGT"), 40))
@@ -126,7 +98,7 @@ def build_dataset(outdir: str):
     ins3 = "".join(rng.choice(list("ACGT"), 30))
     ref_oriented = genome[p:p + m1] + ins3 + genome[p + m1:p + m1 + m2]
     cig3 = [(0, m1), (1, 30), (0, m2)]
-    reads.append(("gr3", _revcomp(ref_oriented), 16, p, cig3,
+    reads.append(("gr3", revcomp(ref_oriented), 16, p, cig3,
                   ref_oriented))
 
     # coordinate order: fixtures are emitted in BAM iteration order, so
@@ -159,36 +131,13 @@ def build_dataset(outdir: str):
 
     sigs = []
     for qname, read_seq, *_ in reads:
-        raw = _simulate_signal(rng, read_seq, model)
+        raw = simulate_signal(rng, read_seq, model)
         sigs.append(Signal(raw=raw, digitisation=DIGITISATION,
                            offset=OFFSET, range=RANGE,
                            sample_rate=SAMPLE_RATE, read_id=qname))
     write_blow5(os.path.join(outdir, "signals.blow5"), sigs,
                 rec_press="zstd")
     return genome, reads, sigs, model
-
-
-def oracle_read_state(sig, read_seq: str, model):
-    """events -> MoM -> ABEA (vs the read) -> postalign + recalibrate,
-    all through ops/*_ref.py.  Returns None when any QC rejects."""
-    from f5c_tpu.ops.abea_ref import (align, estimate_scalings_using_mom,
-                                      postalign, recalibrate_model)
-    from f5c_tpu.ops.events_ref import detect_events
-
-    et = detect_events(sig.to_pa())
-    sc = estimate_scalings_using_mom(read_seq, model, et.mean)
-    res = align(read_seq, et.mean, model, sc)
-    if res.failed:
-        return None
-    n_kmers = len(read_seq) - model.k + 1
-    post = postalign(res.pairs, read_seq, n_kmers, model)
-    ok, rc = recalibrate_model(model, et.mean, post, read_seq)
-    if not ok or rc.var > 2.5 or post.events_per_base > 5.0:
-        return None
-    return dict(events=et, scaling=rc,
-                b2e_start=post.base_to_event_start,
-                b2e_stop=post.base_to_event_stop,
-                events_per_base=post.events_per_base)
 
 
 class _OracleRead:
@@ -209,7 +158,7 @@ class _OracleRead:
         self.b2e_start = st["b2e_start"]
         self.b2e_stop = st["b2e_stop"]
         self.events_per_base = st["events_per_base"]
-        self.sample_rate = SAMPLE_RATE
+        self.sample_rate = sig.sample_rate
         self.raw_pa = sig.to_pa()
 
 
@@ -220,19 +169,18 @@ def main():
     genome, reads, sigs, model = build_dataset(outdir)
 
     from f5c_tpu.models import builtin_model
+    from f5c_tpu.oracle import oracle_meth_rows, oracle_read_state
     from f5c_tpu.pipeline.eventalign import (EventalignEngine, emit_tsv,
                                              summarize_alignment,
                                              summary_line, summary_header,
                                              tsv_header)
-    from f5c_tpu.pipeline.methylation import call_methylation_for_read
-    from f5c_tpu.pipeline.runner import _render_meth_rows
 
     cpg = builtin_model("dna_r9_cpg")
 
     states = []
     for (qname, read_seq, flag, pos, cigar, bam_seq), sig in zip(reads,
                                                                  sigs):
-        st = oracle_read_state(sig, read_seq, model)
+        st = oracle_read_state(sig.to_pa(), read_seq, model)
         assert st is not None, f"{qname}: oracle QC rejected the read"
         states.append(st)
     print(f"[golden] all {len(states)} reads pass the oracle QC chain")
@@ -245,15 +193,9 @@ def main():
     for (qname, read_seq, flag, pos, cigar, bam_seq), st in zip(reads,
                                                                 states):
         ref_span = sum(ln for op, ln in cigar if op in (0, 2))
-        ref_seq = genome[pos:pos + ref_span]
-        is_reverse = bool(flag & 16)
-        site_map = call_methylation_for_read(
-            ref_seq, pos, cigar, is_reverse, len(read_seq),
-            st["events"].mean.astype(np.float32), st["b2e_start"],
-            st["scaling"], cpg, st["events_per_base"])
-        rows = _render_meth_rows("golden_ctg", qname, is_reverse,
-                                 site_map, 1, -1, -1)
-        meth.write(rows.decode() if isinstance(rows, bytes) else rows)
+        meth.write(oracle_meth_rows(
+            "golden_ctg", genome[pos:pos + ref_span], qname, read_seq, pos,
+            cigar, bool(flag & 16), st, cpg, 1))
     with open(os.path.join(outdir, "meth.exp"), "w") as f:
         f.write(meth.getvalue())
     n_meth = meth.getvalue().count("\n") - 1
@@ -264,7 +206,6 @@ def main():
     # cursor with host-round chunk DP (native.viterbi_chunk; bit-pinned
     # to ops/hmm_ref.profile_hmm_viterbi by tests/test_viterbi.py)
     os.environ["F5C_TPU_EA_ENGINE"] = "python"
-    os.environ["F5C_TPU_VIT_HOST_MAX"] = "1000000"
     engine = EventalignEngine(model)
     oreads, segs = [], []
     for (qname, read_seq, flag, pos, cigar, bam_seq), st, sig in zip(
@@ -286,7 +227,7 @@ def main():
                           recs.ref_offset, i))
         s = summarize_alignment(recs, r, nm=0)
         summ.write(summary_line(i, r.qname, "signals.blow5", False, s,
-                                SAMPLE_RATE, r.scaling))
+                                r.sample_rate, r.scaling))
     with gzip.open(os.path.join(outdir, "eventalign.exp.gz"), "wt") as f:
         f.write(ea.getvalue())
     with open(os.path.join(outdir, "eventalign.summary.exp"), "w") as f:

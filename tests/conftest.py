@@ -1,8 +1,9 @@
 """Shared test fixtures.
 
-Tests run on CPU with a virtual 8-device mesh so sharding paths are
-exercised without TPU hardware (the driver validates the real-chip and
-multi-chip paths separately via __graft_entry__.py / bench.py).
+Tests run on the CPU with a virtual 8-device mesh, so sharding paths run
+without a GPU.  Tests marked ``gpu`` take the ``gpu`` fixture, which
+skips them unless JAX's backend is a GPU; on the card run them with
+``JAX_PLATFORMS=cuda python -m pytest -m gpu tests/``.
 """
 
 import os
@@ -32,6 +33,17 @@ READ1_FAST5 = os.path.join(
 needs_reference = pytest.mark.skipif(
     not os.path.isdir(ECOLI_DIR), reason="reference test data not mounted"
 )
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX runs on a GPU (decided here, never at import)."""
+    import jax
+
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU: on the card run "
+                    "JAX_PLATFORMS=cuda python -m pytest -m gpu tests/")
+    return jax.devices()[0]
 
 
 @pytest.fixture(scope="session")

@@ -9,7 +9,7 @@ import pytest
 from f5c_tpu.io.bai import BaiIndex, reg2bins
 from f5c_tpu.io.bam import BamReader
 
-from conftest import ECOLI_DIR
+from conftest import ECOLI_DIR, needs_reference
 
 BAM = os.path.join(ECOLI_DIR, "reads.sorted.bam")
 
@@ -21,6 +21,7 @@ def test_reg2bins_spec():
     assert 4681 + (100_000 >> 14) in reg2bins(100_000, 100_001)
 
 
+@needs_reference
 def test_bai_parses():
     idx = BaiIndex(BAM + ".bai")
     assert len(idx.refs) == 3
@@ -30,6 +31,7 @@ def test_bai_parses():
     assert idx.chunks(0, 10, 10) == []
 
 
+@needs_reference
 def test_fetch_equals_scan():
     bam = BamReader(BAM)
     assert bam.has_index()
@@ -43,6 +45,7 @@ def test_fetch_equals_scan():
         assert via_bai == scan, (tid, lo, hi)
 
 
+@needs_reference
 def test_streaming_matches_full_decode():
     # the streaming scan must agree with itself across repeated iteration
     bam = BamReader(BAM)
@@ -54,6 +57,7 @@ def test_streaming_matches_full_decode():
     assert r0[1] == 0 and r0[2] >= 0
 
 
+@needs_reference
 def test_fetch_without_index_falls_back(tmp_path):
     import shutil
 

@@ -77,7 +77,7 @@ def test_index_and_call_methylation(ds, tmp_path):
     assert os.path.exists(blow5 + ".idx")
     meth_out = str(tmp_path / "meth.tsv")
     rc = _cli(["call-methylation", "-b", bam, "-g", genome, "-r", reads,
-               "--slow5", blow5, "--min-mapq", "0", "-x", "tpu",
+               "--slow5", blow5, "--min-mapq", "0", "-x", "hpc-gpu",
                "-o", meth_out])
     assert rc == 0
     lines = open(meth_out).read().splitlines()

@@ -11,16 +11,16 @@ import numpy as np
 import pytest
 
 h5py = pytest.importorskip("h5py")
-zstandard = pytest.importorskip("zstandard")
 
 VBZ = 32020
 
 
 def _vbz_compress(samples: np.ndarray) -> bytes:
     from f5c_tpu.io.slow5 import _svb_zd_encode
+    from f5c_tpu.io.zstd import compress
 
     blob = _svb_zd_encode(samples)   # u32 count + svb stream
-    return zstandard.ZstdCompressor(level=1).compress(blob[4:])
+    return compress(blob[4:], level=1)
 
 
 def _make_vbz_fast5(path, read_id, samples, chunk=1000):

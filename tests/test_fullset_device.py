@@ -1,7 +1,7 @@
-"""Whole-dataset parity of the PRODUCTION align path (ring Pallas kernel
-on the chip) against the reference's debug fixtures — runs in the
-default suite so full-set QC drift in the device kernel fails pytest
-(VERDICT r1 item 3).  The NumPy-oracle flavour lives in
+"""Whole-dataset parity of the production align path (the platform's
+ABEA route, ops/route.py) against the reference's debug fixtures — runs
+in the default suite so full-set QC drift in the device route fails
+pytest.  The NumPy-oracle flavour lives in
 test_fullset_oracle.py behind -m slow."""
 
 import os
@@ -20,7 +20,7 @@ def aligned_records():
     import jax
 
     if jax.default_backend() == "cpu":
-        pytest.skip("production Pallas align path needs the chip")
+        pytest.skip("the full set on the XLA route is minutes of CPU")
     from f5c_tpu import native
     from f5c_tpu.io.bam import BamReader
     from f5c_tpu.io.fasta import FastaIndex

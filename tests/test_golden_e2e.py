@@ -31,29 +31,9 @@ pytestmark = pytest.mark.skipif(
 def _tolerant_compare(ours: str, truth: str, float_cols: set[int],
                       max_deviant: float = 0.0):
     """scripts/compare_tsv.py semantics, in-process."""
-    a_rows = ours.rstrip("\n").split("\n")
-    b_rows = truth.rstrip("\n").split("\n")
-    assert len(a_rows) == len(b_rows), (
-        f"row count {len(a_rows)} != {len(b_rows)}")
-    bad = []
-    for rn, (la, lb) in enumerate(zip(a_rows[1:], b_rows[1:])):
-        a, b = la.split("\t"), lb.split("\t")
-        ok = len(a) == len(b)
-        if ok:
-            for i, (x, y) in enumerate(zip(a, b)):
-                if i in float_cols:
-                    xv, yv = float(x), float(y)
-                    if abs(xv - yv) > 0.1 * abs(yv) + 0.02:
-                        ok = False
-                        break
-                elif x != y:
-                    ok = False
-                    break
-        if not ok:
-            bad.append((rn, la, lb))
-    n = max(len(a_rows) - 1, 1)
-    assert len(bad) / n <= max_deviant, (
-        f"{len(bad)}/{n} rows deviate; first: {bad[0]}")
+    from f5c_tpu.oracle import tolerant_compare
+
+    tolerant_compare(ours, truth, float_cols, max_deviant)
 
 
 @pytest.fixture(scope="module")
@@ -75,8 +55,7 @@ def golden_pipeline(tmp_path_factory):
     return pipe, tmp
 
 
-def test_golden_call_methylation(golden_pipeline):
-    pipe, tmp = golden_pipeline
+def _check_meth(pipe):
     out = io.StringIO()
     pipe.call_methylation(out=out)
     assert pipe.counters["processed"] == 6
@@ -85,13 +64,12 @@ def test_golden_call_methylation(golden_pipeline):
     _tolerant_compare(out.getvalue(), truth, {4, 5, 6})
 
 
-def test_golden_eventalign(golden_pipeline):
+def _check_eventalign(tmp):
     from types import SimpleNamespace
 
     from f5c_tpu.pipeline.eventalign import run_eventalign
     from f5c_tpu.pipeline.runner import Options, Pipeline
 
-    _, tmp = golden_pipeline
     # fresh pipeline: the meth run consumed the BAM iterator
     opt = Options(min_mapq=0, slow5_path=os.path.join(tmp,
                                                       "signals.blow5"))
@@ -123,3 +101,42 @@ def test_golden_eventalign(golden_pipeline):
     # float cols: total_duration, shift, scale, drift, var
     _tolerant_compare(_norm(ours_sum), _norm(truth_sum),
                       {9, 10, 11, 12, 13})
+
+
+def test_golden_call_methylation(golden_pipeline):
+    """The suite's default: 8 virtual devices, the mesh paths."""
+    pipe, _ = golden_pipeline
+    _check_meth(pipe)
+
+
+def test_golden_eventalign(golden_pipeline):
+    _check_eventalign(golden_pipeline[1])
+
+
+def test_golden_call_methylation_one_device(golden_pipeline, monkeypatch):
+    """The one-device wave schedule (what one card runs)."""
+    from f5c_tpu.pipeline.runner import Options, Pipeline
+
+    monkeypatch.setenv("F5C_TPU_MESH", "0")
+    tmp = golden_pipeline[1]
+    slow5 = os.path.join(tmp, "signals.blow5")
+    pipe = Pipeline(os.path.join(tmp, "reads.bam"),
+                    os.path.join(tmp, "genome.fa"),
+                    os.path.join(tmp, "reads.fasta"),
+                    Options(min_mapq=0, meth_out_version=1,
+                            slow5_path=slow5))
+    assert pipe.supports_waves()
+    _check_meth(pipe)
+
+
+def test_golden_eventalign_one_device(golden_pipeline, monkeypatch):
+    monkeypatch.setenv("F5C_TPU_MESH", "0")
+    _check_eventalign(golden_pipeline[1])
+
+
+@pytest.mark.parametrize("engine", ["python", "device"])
+def test_golden_eventalign_engine(golden_pipeline, monkeypatch, engine):
+    """The lockstep engines (host chunk DPs; batched device Viterbi)
+    meet the same gate as the default whole-read native loop."""
+    monkeypatch.setenv("F5C_TPU_EA_ENGINE", engine)
+    _check_eventalign(golden_pipeline[1])

@@ -4,10 +4,9 @@ serial run.
 
 The `_host_pool` threads carry the three hot host stages (signal load +
 event detect via prep_read, postalign/QC decode, CpG group collection)
-on real multi-core TPU hosts — the role of the reference's
-work-stealing pthread pool (src/f5c.c:574-679).  This pins the claim
-that threading changes nothing but wall time (BENCH.md
-"Host-parallelism for real TPU hosts") in the default suite.
+on multi-core hosts — the role of the reference's work-stealing
+pthread pool (src/f5c.c:574-679).  This pins the claim that threading
+changes nothing but wall time in the default suite.
 """
 
 import io

@@ -10,6 +10,26 @@ from f5c_tpu.io.bgzf import BgzfWriter, decompress_all, is_bgzf
 from f5c_tpu.io.fasta import FastaIndex, read_fastx, write_fai
 from tests.conftest import ECOLI_DIR, needs_reference
 
+GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden")
+
+
+def _indexed_reads(tmp_path, n_reads=40):
+    """A generated reads FASTA + BLOW5 indexed by ReadDB (bgzf copy,
+    .fai and .gzi)."""
+    from f5c_tpu.io.readdb import ReadDB
+    from f5c_tpu.models import builtin_model
+    from f5c_tpu.sim import (mapped_read, random_genome, read_lengths,
+                             write_dataset)
+
+    rng = np.random.default_rng(5)
+    genome = random_genome(rng, 200_000)
+    reads = [mapped_read(rng, genome, f"r{i}", int(n))
+             for i, n in enumerate(read_lengths(rng, n_reads, 3000))]
+    paths = write_dataset(str(tmp_path), genome, reads,
+                          builtin_model("dna_r9_nucleotide"), rng)
+    ReadDB(paths["reads"]).build(slow5_path=paths["blow5"])
+    return paths
+
 
 @needs_reference
 def test_bam_reader():
@@ -115,7 +135,7 @@ def test_fasta_gzi_streaming_matches_inmemory(tmp_path):
 
     from f5c_tpu.io.fasta import FastaIndex
 
-    src = os.path.join(ECOLI_DIR, "reads.fasta.index")
+    src = _indexed_reads(tmp_path / "ds")["reads"] + ".index"
     for ext in ("", ".fai", ".gzi"):
         shutil.copy(src + ext, tmp_path / ("ix" + ext))
     a = FastaIndex(str(tmp_path / "ix"))
@@ -138,8 +158,8 @@ def test_readdb_build_writes_gzi(tmp_path):
     from f5c_tpu.io.readdb import ReadDB
 
     reads = tmp_path / "reads.fasta"
-    shutil.copy(os.path.join(ECOLI_DIR, "reads.fasta"), reads)
-    ReadDB(str(reads)).build(
-        fast5_dirs=[os.path.join(ECOLI_DIR, "fast5_files")])
+    shutil.copy(os.path.join(GOLDEN, "reads.fasta"), reads)
+    shutil.copy(os.path.join(GOLDEN, "signals.blow5"), tmp_path)
+    ReadDB(str(reads)).build(slow5_path=str(tmp_path / "signals.blow5"))
     gzi = read_gzi(str(reads) + ".index.gzi")
     assert gzi[0] == (0, 0) and len(gzi) >= 1
